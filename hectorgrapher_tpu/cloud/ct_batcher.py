@@ -3,8 +3,8 @@
 The reference's multi-robot MapBuilderServer runs ONE SLAM thread that
 processes sensor items FIFO, so each trajectory's continuous-time window
 solves run serially (ref: cloud/internal/map_builder_server.cc
-ProcessSensorDataQueue:157-176). On TPU that schedule wastes the chip:
-a single window solve is latency-bound (~0.66 ms) while the batched
+ProcessSensorDataQueue:157-176). On a device that schedule wastes it:
+a single window solve is latency-bound while the batched
 solve amortizes dispatch and the 72x72 damped solves into one program
 (solve_ct_window_batched — the benched multi-robot operating point).
 

@@ -621,7 +621,7 @@ class LuaMapBuilderConfig:
 def _strip_unsupported(tree: Mapping[str, Any], cls) -> Dict[str, Any]:
     """Drop keys the typed config doesn't carry, recursively; returns a new
     dict. Records nothing — callers use config.merge which raises on
-    *unknown* keys, so this is only for deliberate TPU-design deletions."""
+    *unknown* keys, so this is only for keys deliberately left out of this design."""
     import dataclasses
 
     known = {f.name: f for f in dataclasses.fields(cls)}

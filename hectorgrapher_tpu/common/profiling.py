@@ -55,35 +55,25 @@ def section(name: str):
 
 
 @contextlib.contextmanager
-def device_trace(log_dir: str = "/tmp/hg_tpu_trace"):
-    """XLA-level device trace via the JAX profiler; view with TensorBoard
-    or xprof. No-op fallback if the profiler is unavailable."""
+def device_trace(log_dir: str):
+    """XLA-level device trace via the JAX profiler into `log_dir`; view
+    with TensorBoard or xprof. A profiler that fails to start or stop
+    raises."""
     import jax
 
-    try:
-        jax.profiler.start_trace(log_dir)
-        started = True
-    except Exception:
-        started = False
+    jax.profiler.start_trace(log_dir)
     try:
         yield log_dir
     finally:
-        if started:
-            try:
-                jax.profiler.stop_trace()
-            except Exception:
-                pass
+        jax.profiler.stop_trace()
 
 
 def annotate(name: str):
     """Named region inside a device trace (jax.profiler.TraceAnnotation),
-    usable as a context manager; degrades to a wall-clock section."""
+    usable as a context manager."""
     import jax
 
-    try:
-        return jax.profiler.TraceAnnotation(name)
-    except Exception:
-        return section(name)
+    return jax.profiler.TraceAnnotation(name)
 
 
 def report() -> str:

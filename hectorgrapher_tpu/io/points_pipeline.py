@@ -403,7 +403,7 @@ class OutlierRemovingPointsProcessor(PointsProcessor):
 
 class HybridGridPointsProcessor(PointsProcessor):
     """(ref: io/hybrid_grid_points_processor.cc — insert every batch into a
-    3D probability grid and serialize it at flush.) The TPU-native analog
+    3D probability grid and serialize it at flush.) The dense analog
     inserts into the dense 3D ProbabilityGrid and writes an .npz with
     log_odds/known/meta instead of a HybridGrid proto."""
 

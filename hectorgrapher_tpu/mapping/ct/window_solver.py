@@ -1,6 +1,6 @@
 """Continuous-time sliding-window optimization: the jitted core.
 
-TPU-native replacement for the Ceres problem built per window by
+Replacement for the Ceres problem built per window by
 OptimizingLocalTrajectoryBuilder (ref: mapping/internal/3d/
 optimizing_local_trajectory_builder.cc MaybeOptimize:1114-1290 and the
 cost functors under internal/3d/scan_matching/):
@@ -166,7 +166,7 @@ def per_point_brackets(problem: CtProblem, times):
 
     times: (C, P) relative point times. Absolute point time = cloud_time +
     relative time; the bracketing pair comes from searchsorted over the
-    (masked) control-point times — the TPU form of the reference's
+    (masked) control-point times — the dense form of the reference's
     per-point control-point walk (AddPerPointMatchingResiduals,
     optimizing_local_trajectory_builder.cc:513-926, which subdivides
     clouds only to economize on CPU; per-point slerp is free here.)
@@ -434,22 +434,14 @@ def make_ct_block_families(prepared_hi, prepared_lo, problem: CtProblem, weights
             gb = jnp.zeros((k1, 18), jnp.float32)
             cost = 0.0
             for J, r, seg in outs:
-                # One-hot batched matmul instead of segment_sum: the
-                # scatter-add that segment_sum lowers to serializes on TPU
-                # and was the per-point solve's fixed-cost dominator, run
-                # once per LM assembly (measured round 4: this rewrite
-                # took the solve 2.09 -> 1.13 ms, final costs equal to 4
-                # decimals). k1 is tiny (#CP pairs), so masking J into
-                # (k1, N, 18) and batch-matmuling against (N, 18) puts the
-                # whole reduction on the MXU with no scatter.
+                # One-hot batched matmul instead of segment_sum: k1 is
+                # tiny (#CP pairs), so masking J into (k1, N, 18) and
+                # batch-matmuling against (N, 18) is one dense reduction
+                # with no scatter.
                 onehot = (seg[:, None] == jnp.arange(k1)[None, :]).astype(J.dtype)
                 Jk = onehot.T[:, :, None] * J[None, :, :]  # (k1, N, 18)
-                # HIGHEST precision: the MXU's default bf16 multiplies
-                # drop ~8 mantissa bits from normal-equation entries,
-                # which can shift LM behavior on ill-conditioned windows.
-                hp = jax.lax.Precision.HIGHEST
-                S = S + jnp.einsum("kni,nj->kij", Jk, J, precision=hp)
-                gb = gb + jnp.einsum("kni,n->ki", Jk, r, precision=hp)
+                S = S + jnp.einsum("kni,nj->kij", Jk, J)
+                gb = gb + jnp.einsum("kni,n->ki", Jk, r)
                 cost = cost + 0.5 * jnp.sum(r * r)
             pairs = jnp.arange(k1)
             idx = jnp.concatenate(
@@ -598,7 +590,7 @@ def _make_ct_assemble(prepared_hi, prepared_lo, problem: CtProblem,
         for fam in (scan_block(state), pair_block(state)):
             # Dense one-hot projection instead of scatter-add: E maps each
             # block's 18-dim tangent into the D-dim layout; JtJ += E^T S E
-            # runs on the MXU and vmaps cleanly (batched scatters serialize,
+            # runs as a dense matmul and vmaps cleanly (batched scatters serialize,
             # which wrecked solve_ct_window_batched at larger batches).
             # Families come either raw (J, r, idx) or pre-reduced
             # (S, g_blk, cost_blk, idx) — the per-point family segment-sums
@@ -607,9 +599,8 @@ def _make_ct_assemble(prepared_hi, prepared_lo, problem: CtProblem,
                 S, gb, cb, idx = fam
             else:
                 J, r, idx = fam
-                hp = jax.lax.Precision.HIGHEST
-                S = jnp.einsum("cri,crj->cij", J, J, precision=hp)
-                gb = jnp.einsum("cri,cr->ci", J, r, precision=hp)
+                S = jnp.einsum("cri,crj->cij", J, J)
+                gb = jnp.einsum("cri,cr->ci", J, r)
                 cb = 0.5 * jnp.sum(r * r)
             E = (idx[:, :, None] == jnp.arange(D)[None, None, :]).astype(jnp.float32)
             JtJ = JtJ + jnp.einsum("cid,cij,cje->de", E, S, E)
@@ -659,7 +650,7 @@ def solve_ct_window_block(
     Per-scan mode: one 18-dim block per cloud. Per-point mode: one scalar
     block per point, bracketed by its own control-point pair (the
     reference's AddPerPointMatchingResiduals). Both use analytic scan
-    Jacobians and dense MXU normal-equation assembly.
+    Jacobians and dense matmul normal-equation assembly.
     """
     k = state0.translation.shape[0]
     D = 9 * k

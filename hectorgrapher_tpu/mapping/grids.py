@@ -1,6 +1,6 @@
 """Dense grid map representations.
 
-TPU-native replacement for the reference's grid structures:
+Replacement for the reference's grid structures:
   * Grid2D / ProbabilityGrid / TSDF2D (ref: mapping/2d/grid_2d.h,
     probability_grid.h, tsdf_2d.h)
   * HybridGrid / HybridGridTSDF sparse voxel trees (ref: mapping/3d/
@@ -149,7 +149,7 @@ STORAGE_DTYPES = {
     "bfloat16": jnp.bfloat16,
     # uint16: reference-parity quantized storage (see quantize_tsdf_grid).
     # Active grids still compute in f32; "uint16" quantizes on submap
-    # finish (the reference quantizes always — TPU-first divergence: f32
+    # finish (the reference quantizes always — divergence: f32
     # compute avoids decode/encode per insert, uint16 halves the memory of
     # the long-lived finished submaps that dominate the footprint).
     "uint16": jnp.uint16,

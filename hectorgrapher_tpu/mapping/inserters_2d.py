@@ -1,6 +1,6 @@
 """2D range-data insertion as batched scatter updates.
 
-TPU-native replacement for:
+Replacement for:
   * ProbabilityGridRangeDataInserter2D (ref: mapping/2d/
     probability_grid_range_data_inserter_2d.cc — Bresenham ray casting with
     hit/miss odds tables and per-scan update markers)

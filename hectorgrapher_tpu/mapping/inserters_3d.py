@@ -1,6 +1,6 @@
 """3D range-data insertion kernels.
 
-TPU-native replacement for:
+Replacement for:
   * OccupancyGridRangeDataInserter3D (ref: mapping/3d/
     range_data_inserter_3d.cc — per-hit odds update + last-N free-space
     voxels along each ray)
@@ -310,7 +310,7 @@ def insert_tsdf_3d_triangles(
     layer is rasterized into the TSDF with distance = layer offset +
     cell-to-plane distance.)
 
-    TPU schedule: instead of per-row scanline walks, every triangle is
+    Schedule: instead of per-row scanline walks, every triangle is
     sampled on a fixed barycentric grid per layer and the updates are
     scatter-accumulated (weighted average, same UpdateCell algebra).
     """
@@ -404,15 +404,15 @@ def insert_tsdf_3d_triangles(
 
 @functools.partial(jax.jit, static_argnames=("k",))
 def knn_pca_normals(points, valid, origin, k: int = 16, radius: float = 0.4):
-    """k-NN PCA surface normals: the TPU-native equivalent of the
+    """k-NN PCA surface normals: the dense equivalent of the
     reference's PCL/OPEN3D backends (ref: tsdf_range_data_inserter_3d.cc
     :405-489 — Open3D EstimateNormals with KDTreeSearchParamHybrid(radius,
     max_nn): per-point covariance over hybrid radius/k-NN neighborhoods,
     normal = smallest-eigenvalue eigenvector, oriented toward the sensor).
 
-    KD-trees are pointer-chasing and TPU-hostile; for padded clouds
+    KD-trees are pointer-chasing and a poor fit for batched device code; for padded clouds
     (P <= a few thousand) the dense (P, P) distance matrix + lax.top_k is
-    one fused MXU-friendly program.
+    one fused matmul-friendly program.
 
     points: (P, 3), valid: (P,), origin: (3,).
     Returns (normals (P, 3), ok (P,)) — ok requires >= 3 in-radius

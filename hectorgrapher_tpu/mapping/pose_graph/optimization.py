@@ -1,6 +1,6 @@
 """Sparse pose adjustment (SPA) as batched block Gauss-Newton.
 
-TPU-native replacement for OptimizationProblem2D/3D
+Replacement for OptimizationProblem2D/3D
 (ref: internal/optimization/optimization_problem_{2d,3d}.cc — Ceres
 problems with SPA residuals per constraint (cost_functions/spa_cost_
 function_2d/3d.h), Huber loss on INTER constraints, first submap held
@@ -12,10 +12,10 @@ block structure is exploited directly — per-constraint 12-dim (3D) or
 batched einsums. The plain SPA system is solved by Schur elimination of
 the node block (`_spa_schur_delta`): both diagonal blocks of the normal
 matrix are block-diagonal, so the factorization shrinks from
-(P*(S+N))^2 to (P*S)^2 — the TPU analog of Ceres' SPARSE_SCHUR. The
+(P*(S+N))^2 to (P*S)^2 — the dense analog of Ceres' SPARSE_SCHUR. The
 `_full` variants (odometry/fixed-frame/landmark/IMU families introduce
 node-node and global couplings) assemble the dense damped normal matrix
-and solve it with one Cholesky on the MXU — dense is right at this
+and solve it with one Cholesky as a dense matmul — dense is right at this
 scale, D = 6*(S+N) stays in the thousands. Huber is applied as IRLS
 sqrt-weights recomputed each LM iteration.
 """
@@ -46,7 +46,7 @@ from hectorgrapher_tpu.common.math import normalize_angle_difference
 
 def _chol_solve(a: jax.Array, b: jax.Array) -> jax.Array:
     """Solve SPD a @ x = b via Cholesky (the damped normal matrix is SPD;
-    ~2.5x faster than the generic LU path on TPU)."""
+    cheaper than the generic LU path)."""
     lo = jnp.linalg.cholesky(a)
     y = jax.scipy.linalg.solve_triangular(lo, b, lower=True)
     return jax.scipy.linalg.solve_triangular(lo.T, y, lower=False)
@@ -59,7 +59,7 @@ def _spa_schur_delta(j_s, j_n, r, c_submap, c_node, s_count, n_count,
     The plain SPA normal matrix has NO submap-submap or node-node edges
     (every residual couples exactly one submap and one node), so both
     diagonal blocks are block-diagonal. Eliminating the node block reduces
-    the factorization from (P*(S+N))^2 dense to (P*S)^2 — the TPU analog
+    the factorization from (P*(S+N))^2 dense to (P*S)^2 — the dense analog
     of Ceres' SPARSE_SCHUR (ref: pose_graph.lua ceres solver options).
     The damped system (per-coordinate diagonal damping, zeroed fixed
     rows/columns with unit diagonal) is identical to the dense path's, so
@@ -168,12 +168,12 @@ def _spa_partial_blocks(j_s, j_n, r, c_submap, c_node, s_count, n_count):
     """Block normal-equation operands, summed over the given constraints.
 
     Linear in the constraint set, so shards' partial blocks psum to the
-    global ones — the distributed solver reduces THESE over ICI instead of
+    global ones — the distributed solver reduces THESE across devices instead of
     a dense (D, D) matrix (10x less collective payload).
 
     NOTE the (S, N, P, P) coupling tensor is O(S*N) memory — fine at the
     per-round operating point (<= ~1M submap-node products) but fatal at
-    production graph sizes (500 x 5000 padded to 9.5 GB on a v5e). Large
+    production graph sizes (500 x 5000 pads to 9.5 GB). Large
     graphs take the matrix-free CG path (`_spa_cg_solve`) instead.
     """
     a_blocks, c_blocks, g_s, g_n = _spa_diag_blocks(
@@ -195,7 +195,7 @@ def _spa_cg_solve(
     Matrix-free: the damped normal matrix is only ever applied as
     v -> J^T (J v) + damping*v with per-constraint gathers/scatters, so
     memory stays O(C*R*P + (S+N)*P^2) — no (S, N) coupling tensor and no
-    dense factorization. This is the production-scale path (the TPU analog
+    dense factorization. This is the production-scale path (the dense analog
     of Ceres' ITERATIVE_SCHUR + JACOBI): the Schur path's exact solve wins
     below ~1M submap-node products, CG wins above.
 
@@ -226,7 +226,7 @@ def _spa_cg_solve(
     a_d, add_s = damp(a_blocks, fixed_s)
     c_d, add_n = damp(c_blocks, fixed_n)
     # Block-Jacobi preconditioner: the damped per-submap / per-node (P, P)
-    # diagonal blocks, inverted batched (tiny MXU solves).
+    # diagonal blocks, inverted batched (tiny dense solves).
     a_inv = jnp.linalg.inv(a_d)
     c_inv = jnp.linalg.inv(c_d)
 

@@ -1,10 +1,10 @@
 """Real-time correlative scan matching in 2D as one dense kernel.
 
-TPU-native replacement for RealTimeCorrelativeScanMatcher2D
+Replacement for RealTimeCorrelativeScanMatcher2D
 (ref: internal/2d/scan_matching/real_time_correlative_scan_matcher_2d.cc,
 correlative_scan_matcher_2d.cc SearchParameters). The reference loops over
 candidates with early discretization; here the full (theta, dx, dy)
-score volume is evaluated as one batched gather + MXU reduction - the
+score volume is evaluated as one batched gather + matmul reduction - the
 "batch, don't queue" design from SURVEY.md section 7.
 
 Score of a candidate = mean occupancy probability at the transformed hit
@@ -13,15 +13,15 @@ reference's candidate penalty. Out-of-map cells score the unknown-cell
 probability 0.1 per CELL, matching the reference's Grid2D::GetProbability
 on out-of-bounds indices.
 
-TPU design (the hot loop is gather-ROW-bound at ~375M rows/s regardless
-of row width, measured): the angular step is chosen so the farthest scan
+Design (the hot loop is bound by the number of gathered rows, not their
+width): the angular step is chosen so the farthest scan
 point moves at most one cell between adjacent angles (SearchParameters
 ctor). Therefore the discretized cell of any point differs by at most
 +-HALF cells (per axis) between an angle and the middle angle of its
 group of ANGLE_GROUP angles. One gather of an 11x11 "wide patch" row,
 centered at the middle angle's cell, serves the 7x7 score patches of all
 ANGLE_GROUP angles - a 5x cut in gather rows. Per-angle extraction is a
-delta-grouped one-hot matmul (MXU): rows are summed per (angle-in-group,
+delta-grouped one-hot matmul: rows are summed per (angle-in-group,
 cell-delta) bucket, and each bucket's 7x7 sub-window of the 11x11 sum is
 added into the score volume with a static slice.
 """
@@ -86,9 +86,7 @@ def _wide_patch_table(prob: jax.Array, k: int, half: int) -> jax.Array:
     ex, ey = nx + 2 * m, ny + 2 * m
     # Two-stage shifted stack: pw x-slices then pw y-slices (2*pw kernels
     # + one relayout) instead of pw^2 separate strided-slice kernels or an
-    # im2col conv (conv_general_dilated_patches measured 3.6 ms for a
-    # 256^2 grid — the convolution machinery, not the 18 MB of movement,
-    # is the cost). Channel order is (a, b) row-major, matching the flat
+    # im2col conv. Channel order is (a, b) row-major, matching the flat
     # lane layout the combine matrix assumes.
     xs = jnp.stack([padded[dx : dx + ex, :] for dx in range(pw)])  # (pw, ex, ny+4m)
     xy = jnp.stack(
@@ -173,7 +171,7 @@ def _scores_from_prep(table, flat, delta_lin, valid, n_valid, window: SearchWind
     n_pts = flat.shape[-1]
     rows = jnp.take(table, flat, axis=0)  # (G, N, pw*pw) bf16
 
-    # delta-grouped one-hot reduction on the MXU: bucket[g, l, j, :] =
+    # delta-grouped one-hot reduction as a matmul: bucket[g, l, j, :] =
     # sum of rows whose angle g*gsz+l saw cell delta j.
     onehot = (
         delta_lin.reshape(n_groups, gsz, 1, n_pts)
@@ -185,8 +183,7 @@ def _scores_from_prep(table, flat, delta_lin, valid, n_valid, window: SearchWind
         rows,
         dimension_numbers=(((2,), (1,)), ((0,), (0,))),
         preferred_element_type=jnp.float32,
-    )  # (G, gsz*gsz^2, pw*pw) — kept flat: a (.., pw, pw) layout would pad
-    # the 11-wide minor dim to 128 lanes (11x memory blowup).
+    )  # (G, gsz*gsz^2, pw*pw), kept flat for the combine matmul below
 
     # Each bucket's 7x7 window sits at a static offset inside the 11x11
     # wide patch: candidate cell = center + delta + (dx, dy). One matmul
@@ -304,148 +301,6 @@ def score_volume_dense(
 
 
 @functools.partial(jax.jit, static_argnames=("window",))
-def prepare_correlative_table(grid: ProbabilityGrid, window: SearchWindow2D):
-    """Wide-patch gather table for repeated matching against one grid.
-
-    Build once per grid VERSION and amortize across the matches scored
-    against it (the analog of the reference's per-submap precomputation
-    grids; construction costs ~1.7 ms for a 256^2 grid)."""
-    from hectorgrapher_tpu.mapping.grids import ensure_f32_grid
-
-    grid = ensure_f32_grid(grid)  # a just-finished submap may be uint16
-    k, gsz, half, *_ = _window_geometry(window)
-    return _wide_patch_table(grid.probability(), k, half)
-
-
-@functools.partial(jax.jit, static_argnames=("window", "interpret"))
-def _match_correlative_2d_batched_pallas(
-    grid: ProbabilityGrid,
-    clouds: PointCloud,
-    initial_poses: Rigid2,
-    window: SearchWindow2D,
-    translation_delta_cost_weight,
-    rotation_delta_cost_weight,
-    table,
-    interpret: bool = False,
-):
-    from hectorgrapher_tpu.ops.pallas_prep2d import TILE_B, correlative_prep_2d_batched
-
-    from hectorgrapher_tpu.mapping.grids import ensure_f32_grid
-
-    grid = ensure_f32_grid(grid)  # a just-finished submap may be uint16
-    prob = grid.probability()
-    nx, ny = prob.shape
-    res = grid.meta.resolution
-    k, gsz, half, m, pw, n_th, n_groups = _window_geometry(window)
-    d = 2 * k + 1
-    t_pad = n_groups * gsz
-
-    b, n_pts = clouds.mask.shape
-    pts = clouds.positions[..., :2]
-    valid = clouds.mask
-    n_valid = jnp.maximum(jnp.sum(valid, axis=1), 1)
-    thetas = _candidate_thetas(window)
-    angles = initial_poses.angle[:, None] + thetas[None, :]  # (B, T)
-
-    params = jnp.concatenate(
-        [
-            initial_poses.translation.astype(jnp.float32),
-            jnp.broadcast_to(
-                jnp.asarray(grid.meta.min_corner, jnp.float32)[None, :], (b, 2)
-            ),
-            jnp.broadcast_to(jnp.asarray(res, jnp.float32).reshape(1, 1), (b, 1)),
-            jnp.zeros((b, 3), jnp.float32),
-        ],
-        axis=1,
-    )
-    n_pad = -n_pts % 128
-    if n_pad:
-        # Lane-tile alignment for the kernels; padded points carry mask 0.
-        pts = jnp.pad(pts, ((0, 0), (0, n_pad), (0, 0)))
-        valid = jnp.pad(valid, ((0, 0), (0, n_pad)))
-    b_pad = -b % TILE_B
-    pad = lambda a: jnp.pad(a, ((0, b_pad),) + ((0, 0),) * (a.ndim - 1))
-    flat, delta_lin = correlative_prep_2d_batched(
-        pad(params),
-        pad(pts[..., 0].astype(jnp.float32)),
-        pad(pts[..., 1].astype(jnp.float32)),
-        pad(jnp.cos(angles)),
-        pad(jnp.sin(angles)),
-        n_groups=n_groups,
-        gsz=gsz,
-        margin=m,
-        ex=nx + 2 * m,
-        ey=ny + 2 * m,
-        interpret=interpret,
-    )
-    flat = flat[:b]
-    delta_lin = delta_lin[:b]
-
-    # Fused score assembly: one-hot + bucket dot + combine in one pallas
-    # kernel, producing scores in WIDE-LANE coordinates (lane ox*pw + oy).
-    from hectorgrapher_tpu.ops.pallas_corr2d import (
-        LANES,
-        correlative_scores_2d_batched,
-    )
-
-    table_p = jnp.pad(table, ((0, 0), (0, LANES - pw * pw)))
-    rows = jnp.take(table_p, flat, axis=0)  # (B, G, N, LANES) bf16
-    scores_wide = correlative_scores_2d_batched(
-        delta_lin, valid.astype(jnp.float32), rows,
-        n_groups=n_groups, gsz=gsz, pw=pw, interpret=interpret,
-    ) / n_valid[:, None, None].astype(jnp.float32)  # (B, T, LANES)
-
-    # Penalty + argmax on the wide-lane layout (same math as
-    # match_correlative_2d; non-window lanes masked to -1).
-    offs = jnp.arange(-k, k + 1, dtype=jnp.int32)
-    dxy = offs.astype(jnp.float32) * res
-    dist = jnp.sqrt(dxy[:, None] ** 2 + dxy[None, :] ** 2)
-    penalty = jnp.exp(
-        -(
-            (dist[None, :, :] * translation_delta_cost_weight
-             + jnp.abs(thetas)[:, None, None] * rotation_delta_cost_weight)
-            ** 2
-        )
-    )  # (T, d, d)
-    lane = jnp.arange(LANES)
-    ox = lane // pw
-    oy = lane % pw
-    in_window = (ox < d) & (oy < d) & (lane < pw * pw)
-    pen_wide = jnp.where(
-        in_window[None],
-        penalty[:, jnp.clip(ox, 0, d - 1), jnp.clip(oy, 0, d - 1)],
-        0.0,
-    )  # (T, LANES)
-    scores = scores_wide * pen_wide[None]
-    ok_t = (jnp.arange(t_pad) < n_th)[None, :, None]
-    scores = jnp.where(ok_t & in_window[None, None, :], scores, -1.0)
-    flat_scores = scores.reshape(b, -1)
-    best = jnp.argmax(flat_scores, axis=1)
-    ti = best // LANES
-    p_lane = best % LANES
-    xi = p_lane // pw
-    yi = p_lane % pw
-    best_poses = Rigid2(
-        translation=initial_poses.translation
-        + jnp.stack([dxy[xi], dxy[yi]], axis=-1),
-        angle=jnp.take_along_axis(angles, ti[:, None], axis=1)[:, 0],
-    )
-    return jnp.take_along_axis(flat_scores, best[:, None], axis=1)[:, 0], best_poses
-
-
-@functools.partial(jax.jit, static_argnames=("window",))
-def _match_correlative_2d_batched_xla(
-    grid, clouds, initial_poses, window,
-    translation_delta_cost_weight, rotation_delta_cost_weight,
-):
-    return jax.vmap(
-        lambda c, p: match_correlative_2d(
-            grid, c, p, window,
-            translation_delta_cost_weight, rotation_delta_cost_weight,
-        )
-    )(clouds, initial_poses)
-
-
 def match_correlative_2d_batched(
     grid: ProbabilityGrid,
     clouds: PointCloud,
@@ -453,36 +308,12 @@ def match_correlative_2d_batched(
     window: SearchWindow2D,
     translation_delta_cost_weight,
     rotation_delta_cost_weight,
-    use_pallas: bool | None = None,
-    interpret: bool = False,
-    prepared_table=None,
 ):
-    """Batched exhaustive search over B independent (cloud, pose) pairs.
-
-    On TPU the prep stage (rotate + discretize + group deltas) runs as one
-    fused pallas kernel — XLA materializes its (B, T, N, 2) intermediates
-    and spends ~4.5 ms per 1024-batch on what is ~0.4 ms of output I/O.
-    Results match the per-match `match_correlative_2d` exactly (the kernel
-    evaluates the same f32 expression tree)."""
-    if use_pallas is None:
-        use_pallas = jax.default_backend() not in ("cpu",)
-    k, gsz, half, m, pw, n_th, n_groups = _window_geometry(window)
-    if pw * pw > 128:
-        # The fused score kernel packs the pw^2 wide-patch lanes into one
-        # 128-lane tile (and its lane-rolls assume no wraparound), which
-        # holds for linear windows up to 3 cells (pw = 11). Wider windows
-        # take the per-match XLA path.
-        use_pallas = False
-    if not use_pallas and not interpret:
-        return _match_correlative_2d_batched_xla(
-            grid, clouds, initial_poses, window,
+    """Batched exhaustive search over B independent (cloud, pose) pairs
+    against one grid: `match_correlative_2d` vmapped over the batch."""
+    return jax.vmap(
+        lambda c, p: match_correlative_2d(
+            grid, c, p, window,
             translation_delta_cost_weight, rotation_delta_cost_weight,
         )
-    if prepared_table is None:
-        prepared_table = prepare_correlative_table(grid, window)
-    return _match_correlative_2d_batched_pallas(
-        grid, clouds, initial_poses, window,
-        translation_delta_cost_weight, rotation_delta_cost_weight,
-        prepared_table,
-        interpret=interpret,
-    )
+    )(clouds, initial_poses)

@@ -1,6 +1,6 @@
 """Real-time correlative scan matching in 3D as one dense kernel.
 
-TPU-native replacement for RealTimeCorrelativeScanMatcher3D
+Replacement for RealTimeCorrelativeScanMatcher3D
 (ref: mapping/internal/3d/scan_matching/real_time_correlative_scan_matcher_3d.cc
 and internal/scan_matching/real_time_correlative_scan_matcher.cc — full
 exhaustive search over discretized (x, y, z, yaw) around the initial

@@ -1,6 +1,6 @@
 """Loop-closure scan matching in 2D: dense coarse-to-fine with top-k.
 
-TPU-native replacement for FastCorrelativeScanMatcher2D
+Replacement for FastCorrelativeScanMatcher2D
 (ref: internal/2d/scan_matching/fast_correlative_scan_matcher_2d.{h,cc} —
 PrecomputationGrid2D max-pool stack (:49) + depth-first branch-and-bound
 (:112)). Same math, different schedule (SURVEY.md section 7 #3): the
@@ -20,6 +20,7 @@ from typing import NamedTuple, Tuple
 import jax
 import jax.numpy as jnp
 
+from hectorgrapher_tpu.common.device import FastMatchLayout, fast_match_layout
 from hectorgrapher_tpu.mapping.grids import ProbabilityGrid, cell_index
 from hectorgrapher_tpu.sensor.types import PointCloud
 from hectorgrapher_tpu.transform.rigid import Rigid2, rot2
@@ -76,32 +77,27 @@ class PreparedFastMatcher2D(NamedTuple):
     DispatchScanMatcherConstruction): build ONCE per finished submap and
     reuse across every constraint candidate scored against it.
 
-    Layout is tuned for the row-gather scoring kernel: each level stores
-    probability MINUS the 0.1 unknown score (so out-of-bounds lookups
-    contribute exactly 0 and the score adds 0.1 back analytically), with
-    one extra all-zero x-row at index nx that out-of-bounds x indices are
-    routed to. Scoring then gathers whole 256-lane y-rows and picks the
-    needed y cells with one-hot contractions on the MXU — the scalar-
-    gather formulation this replaces ran ~25x below the chip's gather
-    ceiling (measured round 4, 7.1 s per 32-candidate production round)."""
+    Each level stores probability MINUS the 0.1 unknown score (so
+    out-of-bounds lookups contribute exactly 0 and the score adds 0.1 back
+    analytically), with one extra all-zero x-row at index nx that
+    out-of-bounds x indices are routed to, in the layout's level dtype."""
 
     flat_levels: jax.Array  # (depth, nx + 1, ny): prob - 0.1; row nx = 0
     meta: object  # GridMeta
     dims: jax.Array  # (2,) int32
 
 
-@functools.partial(jax.jit, static_argnames=("depth",))
-def prepare_fast_matcher_2d(grid: ProbabilityGrid, depth: int) -> PreparedFastMatcher2D:
+@functools.partial(jax.jit, static_argnames=("depth", "layout"))
+def prepare_fast_matcher_2d(
+    grid: ProbabilityGrid, depth: int, layout: FastMatchLayout | None = None
+) -> PreparedFastMatcher2D:
     from hectorgrapher_tpu.mapping.grids import ensure_f32_grid
 
+    layout = layout or fast_match_layout()
     grid = ensure_f32_grid(grid)  # finished submaps may be uint16-quantized
     prob = grid.probability()
     pyramid = precompute_pyramid_2d(prob, depth)
-    # bf16 storage (TPU): the scores are means of [0, 0.8] values
-    # accumulated in f32, so bf16's ~3 significant digits cost ~1e-3
-    # absolute on a score gated at 0.45-0.66 — and the gathered-row
-    # traffic (the kernel's bound) halves. CPU keeps f32 (_level_dtype).
-    stack = (jnp.stack(pyramid) - 0.1).astype(_level_dtype())  # (depth, nx, ny)
+    stack = (jnp.stack(pyramid) - 0.1).astype(layout.level_dtype)  # (depth, nx, ny)
     flat_levels = jnp.concatenate(
         [stack, jnp.zeros((depth, 1, prob.shape[1]), stack.dtype)], axis=1
     )
@@ -128,37 +124,13 @@ def match_fast_2d(
     )
 
 
-import os as _os
-
-
-def _on_tpu() -> bool:
-    return jax.default_backend() not in ("cpu",)
-
-
-def _point_chunk() -> int:
-    """Point-chunk size: bounds the materialized (rows, ny) tensor per
-    scan step. On TPU the whole 512-point cloud in one step wins (fewer
-    sequential steps; 4 GB transient bf16 rows fit HBM); on CPU small
-    chunks keep the working set cache-sized."""
-    env = _os.environ.get("HG_FM_CHUNK")
-    if env:
-        return int(env)
-    return 512 if _on_tpu() else 32
-
-
-def _level_dtype():
-    """bf16 halves the gathered-row traffic on TPU (the kernel's bound);
-    CPU XLA emulates bf16 in software, so CPU (the test/CI backend) keeps
-    f32."""
-    return jnp.bfloat16 if _on_tpu() else jnp.float32
-
-
-@functools.partial(jax.jit, static_argnames=("config",))
+@functools.partial(jax.jit, static_argnames=("config", "layout"))
 def match_fast_2d_prepared(
     prepared: PreparedFastMatcher2D,
     cloud: PointCloud,
     initial_pose: Rigid2,
     config: FastSearchConfig,
+    layout: FastMatchLayout | None = None,
 ) -> Tuple[jax.Array, Rigid2]:
     levels = prepared.flat_levels  # (depth, nx+1, ny)
     nx = levels.shape[1] - 1
@@ -173,6 +145,7 @@ def match_fast_2d_prepared(
         cloud,
         initial_pose,
         config,
+        layout or fast_match_layout(),
     )
 
 
@@ -186,8 +159,9 @@ def _match_fast_2d_core(
     cloud: PointCloud,
     initial_pose: Rigid2,
     config: FastSearchConfig,
+    layout: FastMatchLayout,
 ) -> Tuple[jax.Array, Rigid2]:
-    """Row-gather + one-hot-contraction scoring.
+    """Scalar-gather scoring from one shared flat table.
 
     Score of candidate (t, ox, oy) at pyramid level L =
     mean over valid points of [inside ? level[clamp(idx)] : 0.1], with
@@ -197,21 +171,15 @@ def _match_fast_2d_core(
     0.1 unknown value; at level 0 the 2^0 span degenerates to idx >= 0).
 
     Schedule: levels store (prob - 0.1) with a zero OOB x-row, so the
-    score is 0.1 + sum(contributions)/n_valid and every lookup gathers a
-    FULL 256-lane y-row once per (candidate-group, point, x-offset),
-    picking all needed y-offsets from it with a one-hot contraction that
-    XLA maps onto the MXU. The per-cell scalar-gather formulation this
-    replaces ran at ~27M lookups/s (7.1 s per 32-candidate production
-    round, round-4 profile); rows are shared across the dense offset grid
-    of the coarse stage (7 y-picks/row) and across the 2x2 children of
-    each branch-and-bound expansion (2 y-picks/row).
+    score is 0.1 + sum(contributions)/n_valid, one scalar gather per
+    (candidate, point, cell), chunked over points (`layout.point_chunk`)
+    so the gathered transient stays bounded.
 
     The table is passed FLAT with the candidate's submap selected by
     `row_base` folded into the row index rather than by indexing a
     batched operand: under vmap a per-candidate table operand lowers to a
-    batched gather that serializes over the batch (measured 4x slower
-    than the shared-operand form at the production operating point), while
-    a shared flat operand keeps the whole batch in one gather."""
+    batched gather that serializes over the batch, while a shared flat
+    operand keeps the whole batch in one gather."""
     depth_rows = nx + 1  # rows per level block
     res = resolution
 
@@ -230,7 +198,7 @@ def _match_fast_2d_core(
         GridMeta(resolution=resolution, min_corner=min_corner), rotated
     )  # (T, N, 2)
 
-    CH = _point_chunk()
+    CH = layout.point_chunk
     n_pts = pts.shape[0]
     pad = (-n_pts) % CH
     nch = (n_pts + pad) // CH
@@ -250,46 +218,25 @@ def _match_fast_2d_core(
         """Summed (prob - 0.1) contributions.
 
         ix: (..., P, X) candidate x-indices; iy: (..., P, Y); bvalid: (P,).
-        Returns (..., X, Y). Chunked over P so the gathered row tensor
-        stays bounded."""
+        Returns (..., X, Y). Chunked over P so the gathered tensor stays
+        bounded."""
         base_row = row_base + level * depth_rows
         span = 2 ** level
-
-        on_tpu = _on_tpu()
 
         def body(acc, args):
             ixc, iyc, bvc = args  # (..., CH, X), (..., CH, Y), (CH,)
             x_in = (ixc > -span) & (ixc < nx)
             ixg = jnp.where(x_in, jnp.maximum(ixc, 0), nx)
             y_in = (iyc > -span) & (iyc < ny)
-            # Clamp (negative starts read row/lane 0, same as ix) then
-            # route masked-out picks to -1 so no lane matches.
+            # Clamp (negative starts read cell 0, same as ix) then mark
+            # masked-out picks -1.
             iyg = jnp.where(y_in & bvc[:, None], jnp.clip(iyc, 0, ny - 1), -1)
-            if on_tpu:
-                rows = flat_table[base_row + ixg]  # (..., CH, X, ny)
-                # Virtual one-hot: the compare fuses into the reduce, so
-                # only the gathered rows are read — a materialized one-hot
-                # operand (einsum form) doubled the stage's HBM traffic
-                # (measured: 92 -> 76 ms per expansion level at the
-                # production shape).
-                lanes = jnp.arange(ny, dtype=iyg.dtype)
-                eq = iyg[..., None] == lanes  # (..., CH, Y, ny) — virtual
-                prod = jnp.where(
-                    eq[..., None, :, :], rows[..., :, None, :], flat_table.dtype.type(0)
-                )
-                contrib = jnp.sum(prod, axis=(-1, -4), dtype=jnp.float32)
-            else:
-                # CPU (test/CI backend): plain scalar picks — the one-hot
-                # contraction is a lanes-width FLOP blowup that only pays
-                # on the MXU, and CPU gathers are cheap.
-                flat1d = flat_table.reshape(-1)
-                pick = iyg >= 0  # (..., CH, Y)
-                idx = ((base_row + ixg)[..., :, None] * ny
-                       + jnp.maximum(iyg, 0)[..., None, :])  # (..., CH, X, Y)
-                v = flat1d[idx].astype(jnp.float32)
-                v = jnp.where(pick[..., :, None, :], v, 0.0)  # (..., CH, X, Y)
-                contrib = jnp.sum(v, axis=-3)
-            return acc + contrib, None
+            pick = iyg >= 0  # (..., CH, Y)
+            idx = ((base_row + ixg)[..., :, None] * ny
+                   + jnp.maximum(iyg, 0)[..., None, :])  # (..., CH, X, Y)
+            v = flat_table.reshape(-1)[idx].astype(jnp.float32)
+            v = jnp.where(pick[..., :, None, :], v, 0.0)  # (..., CH, X, Y)
+            return acc + jnp.sum(v, axis=-3), None
 
         chunk = lambda a: jnp.moveaxis(
             a.reshape(a.shape[:-2] + (nch, CH, a.shape[-1])), -3, 0

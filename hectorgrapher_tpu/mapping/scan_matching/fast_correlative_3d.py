@@ -1,6 +1,6 @@
 """Loop-closure scan matching in 3D: dense coarse-to-fine with top-k.
 
-TPU-native replacement for FastCorrelativeScanMatcher3D
+Replacement for FastCorrelativeScanMatcher3D
 (ref: internal/3d/scan_matching/fast_correlative_scan_matcher_3d.{h,cc} —
 PrecomputationGrid3D 8-bit max-pool pyramid (precomputation_grid_3d.h:37),
 yaw candidates gated by RotationalScanMatcher histogram scores (:276-327),
@@ -25,6 +25,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
+from hectorgrapher_tpu.common.device import FastMatchLayout, fast_match_layout
 from hectorgrapher_tpu.mapping.grids import GridMeta, ProbabilityGrid, TSDFGrid, cell_index
 from hectorgrapher_tpu.mapping.scan_matching.rotational_histogram import (
     compute_histogram,
@@ -47,9 +48,10 @@ def grid_match_scores(grid) -> jax.Array:
     return jnp.where(w > 1e-6, jnp.clip(s, 0.1, 0.9), 0.1)
 
 
-_Y_MIN_LANES = 64  # lane floor: gathers of narrower rows waste the
-# TPU's ~512 B memory transactions (measured round 5: 8-lane coarse rows
-# made the production fm launch gather-transaction-bound)
+# Lane floor of the decimated pyramid: y stops halving once a level's rows
+# would be narrower than this. Kept pending an A/B on the card (ROADMAP
+# Speed 3).
+_Y_MIN_LANES = 64
 
 
 def _y_shift(ny: int, level: int) -> int:
@@ -67,8 +69,7 @@ def precompute_pyramid_3d(values, depth: int):
 
     Level 0 is the exact score field. Level l >= 1 stores cells at stride
     2^l in x/z and 2^m in y (m = _y_shift: y stops halving at the
-    _Y_MIN_LANES lane floor so row gathers keep full memory
-    transactions), each holding the max over a window that covers
+    _Y_MIN_LANES lane floor), each holding the max over a window that covers
     [q, q + 2^l) on every axis for ANY query q landing in the cell —
     x/z: the double-width aligned window [2^l X, 2^l X + 2^(l+1));
     y: the (2^(l-m) + 1)-cell aligned window. The value at
@@ -78,7 +79,7 @@ def precompute_pyramid_3d(values, depth: int):
     (The reference's PrecomputationGrid3D stack,
     precomputation_grid_3d.h:37, keeps every level at full resolution —
     affordable in robot RAM, but at the production 256^3 extent a
-    full-res 8-level bf16 stack is ~268 MB/submap of HBM vs ~40 MB
+    full-res 8-level bf16 stack is ~268 MB/submap of device memory vs ~40 MB
     decimated.) Out-of-grid window parts contribute the floor score 0.1,
     matching the dense edge semantics."""
     out = [values]
@@ -141,23 +142,10 @@ def _level_cells(n: int, level: int) -> int:
     return -(-n // (1 << level))
 
 
-def _fc2_on_tpu() -> bool:
-    from hectorgrapher_tpu.mapping.scan_matching.fast_correlative_2d import _on_tpu
-
-    return _on_tpu()
-
-
-def _level_flat_table(pl, dtype, paired: bool):
+def _level_flat_table(pl, dtype):
     """One decimated level field (nx_l, ny_l, nz_l) -> its flat row table:
-    value-0.1 y-minor rows in (z, x) order plus one zero OOB row.
-    paired=True (TPU): each row carries cells (x, x+1) as 2*ny_l lanes
-    (x+1 beyond the grid contributes 0)."""
+    value-0.1 y-minor rows in (z, x) order plus one zero OOB row."""
     r = jnp.transpose(pl - 0.1, (2, 0, 1))  # (nz_l, nx_l, ny_l)
-    if paired:
-        r_next = jnp.concatenate(
-            [r[:, 1:], jnp.zeros_like(r[:, :1])], axis=1
-        )
-        r = jnp.concatenate([r, r_next], axis=2)  # (nz_l, nx_l, 2*ny_l)
     rows = r.reshape(-1, r.shape[-1])
     return jnp.concatenate(
         [rows, jnp.zeros((1, rows.shape[-1]), rows.dtype)]
@@ -216,7 +204,7 @@ def make_fast_search_3d_config(
     )
 
 
-@functools.partial(jax.jit, static_argnames=("config", "grid_shape"))
+@functools.partial(jax.jit, static_argnames=("config", "grid_shape", "layout"))
 def match_fast_3d(
     pyramid_levels,  # tuple of per-level (rows_l + 1, ny_l) flat tables
     grid_shape_meta: GridMeta,
@@ -228,6 +216,7 @@ def match_fast_3d(
     initial_pose: Rigid3,
     yaw_scores,  # (2*num_yaw+1,) rotational-histogram scores per candidate
     config: FastSearch3DConfig,
+    layout: FastMatchLayout | None = None,
 ):
     zero = jnp.asarray(0, jnp.int32)
     return _match_fast_3d_core(
@@ -242,6 +231,7 @@ def match_fast_3d(
         initial_pose,
         yaw_scores,
         config,
+        layout or fast_match_layout(),
     )
 
 
@@ -257,6 +247,7 @@ def _match_fast_3d_core(
     initial_pose: Rigid3,
     yaw_scores,  # (2*num_yaw+1,) rotational-histogram scores per candidate
     config: FastSearch3DConfig,
+    layout: FastMatchLayout,
 ):
     """Core search. Returns (score, low_res_score, rotational_score, pose).
 
@@ -271,18 +262,11 @@ def _match_fast_3d_core(
     batch-serializes the gather). Full-resolution cell indices decimate
     by 2^level at lookup (floor shift); the double-width construction
     window keeps the bound admissible for any query (see
-    precompute_pyramid_3d). Each gathered y-row serves EVERY y-offset of
-    the coarse stage and both y-children of an expansion, picked by a
-    virtual one-hot that fuses into the reduce; scoring is
-    0.1 + sum(contributions)/n_valid with out-of-bounds contributing
+    precompute_pyramid_3d). One scalar gather per (candidate, point,
+    cell); scoring is 0.1 + sum(contributions)/n_valid with out-of-bounds contributing
     exactly 0. The low-edge clamp semantics (span = 2^level; negative
     starts read index 0) match the reference's PrecomputationGrid3D
     admissible bound."""
-    from hectorgrapher_tpu.mapping.scan_matching.fast_correlative_2d import (
-        _on_tpu,
-        _point_chunk,
-    )
-
     nx, ny, nz = grid_shape
     # A search may request more levels than the submap's stack holds
     # (full-submap windows exceed the construction-time depth when the
@@ -308,7 +292,7 @@ def _match_fast_3d_core(
     rot = quat_rotate(yaw_q[:, None, :], rel[None, :, :]) + initial_pose.translation[None, None, :]
     base_idx = cell_index(grid_shape_meta, rot)  # (T, N, 3)
 
-    CH = _point_chunk()
+    CH = layout.point_chunk
     n_pts = pts.shape[0]
     pad = (-n_pts) % CH
     nch = (n_pts + pad) // CH
@@ -324,7 +308,6 @@ def _match_fast_3d_core(
     by = pad_pts(base_idx[..., 1], ny + 1)
     bz = pad_pts(base_idx[..., 2], nz + 1)
     validp = pad_pts(valid, False)
-    on_tpu = _on_tpu()
 
     def score_sum(level, ix, iy, iz, bvalid):
         """Summed (bound - 0.1) contributions from the DECIMATED level.
@@ -358,70 +341,14 @@ def _match_fast_3d_core(
             iyg = jnp.where(
                 y_in & bvc[:, None], jnp.clip(iyc, 0, ny - 1) // y_span, -1
             )
-            if on_tpu:
-                # X-PAIRED rows (see _level_flat_table): both callers pass
-                # x offsets that are CONSECUTIVE level cells in (even, odd)
-                # pairs — the coarse stage's stride-step offsets and the
-                # expansion's {o, o+2^level} children — so ONE gather of
-                # the (x, x+1) pair row serves both. Halves the row-gather
-                # count the kernel is bound by.
-                xn = ixc.shape[-1]
-                p2 = (xn + 1) // 2
-                if 2 * p2 != xn:  # pad odd X with a duplicate (sliced off)
-                    ix_p = jnp.concatenate([ixc, ixc[..., -1:]], axis=-1)
-                    x_in_p = jnp.concatenate(
-                        [x_in, jnp.zeros_like(x_in[..., -1:])], axis=-1
-                    )
-                else:
-                    ix_p, x_in_p = ixc, x_in
-                cells = jnp.maximum(ix_p, 0) // span  # (..., CH, Xp)
-                base_c = cells[..., 0::2]  # (..., CH, P2)
-                sel = jnp.clip(
-                    cells - jnp.repeat(base_c, 2, axis=-1), 0, 1
-                )  # (..., CH, Xp) in {0, 1}: which half of the pair row
-                pair_in = x_in_p[..., 0::2] | x_in_p[..., 1::2]
-                rowidx2 = jnp.where(
-                    pair_in[..., :, None] & z_in[..., None, :],
-                    izg[..., None, :] * nx_l + base_c[..., :, None],
-                    nz_l * nx_l,
-                )  # (..., CH, P2, Z)
-                rows = flat_table[base_row + rowidx2]  # (..., CH, P2, Z, 2*ny_l)
-                rows2 = rows.reshape(rows.shape[:-1] + (2, ny_l))
-                # Cheap 2-way half select -> per-child rows.
-                xs = sel.reshape(sel.shape[:-1] + (p2, 2))
-                xeq = xs[..., None] == jnp.arange(2, dtype=sel.dtype)
-                prod_h = jnp.where(
-                    xeq[..., :, :, None, :, None],  # (..., CH, P2, 2c, 1, 2h, 1)
-                    rows2[..., :, None, :, :, :],  # (..., CH, P2, 1, Z, 2h, ny)
-                    flat_table.dtype.type(0),
-                )
-                rows_child = jnp.sum(prod_h, axis=-2)  # (..., CH, P2, 2c, Z, ny)
-                rows_child = rows_child.reshape(
-                    rows_child.shape[:-4] + (2 * p2,) + rows_child.shape[-2:]
-                )[..., :xn, :, :]  # (..., CH, X, Z, ny)
-                # A child may be x-OOB while its pair row is valid.
-                rows_child = jnp.where(
-                    x_in[..., :, None, None], rows_child, flat_table.dtype.type(0)
-                )
-                lanes = jnp.arange(ny_l, dtype=iyg.dtype)
-                eq = iyg[..., None] == lanes  # (..., CH, Y, ny_l) — virtual
-                prod = jnp.where(
-                    eq[..., None, None, :, :],
-                    rows_child[..., :, :, None, :],
-                    flat_table.dtype.type(0),
-                )  # (..., CH, X, Z, Y, ny_l) — virtual
-                c = jnp.sum(prod, axis=(-1, -5), dtype=jnp.float32)  # (..., X, Z, Y)
-            else:
-                # CPU: plain scalar picks (see the 2D core).
-                flat1d = flat_table.reshape(-1)
-                pick = iyg >= 0  # (..., CH, Y)
-                idx = (
-                    (base_row + rowidx)[..., :, None, :] * ny_l
-                    + jnp.maximum(iyg, 0)[..., None, :, None]
-                )  # (..., CH, X, Y, Z)
-                v = flat1d[idx].astype(jnp.float32)
-                v = jnp.where(pick[..., None, :, None], v, 0.0)
-                c = jnp.moveaxis(jnp.sum(v, axis=-4), -2, -1)  # (..., X, Z, Y)
+            pick = iyg >= 0  # (..., CH, Y)
+            idx = (
+                (base_row + rowidx)[..., :, None, :] * ny_l
+                + jnp.maximum(iyg, 0)[..., None, :, None]
+            )  # (..., CH, X, Y, Z)
+            v = flat_table.reshape(-1)[idx].astype(jnp.float32)
+            v = jnp.where(pick[..., None, :, None], v, 0.0)
+            c = jnp.moveaxis(jnp.sum(v, axis=-4), -2, -1)  # (..., X, Z, Y)
             return acc + c, None
 
         chunk = lambda a: jnp.moveaxis(
@@ -524,8 +451,12 @@ class FastCorrelativeScanMatcher3D:
     constructed per submap by the constraint builder.)
     """
 
-    def __init__(self, options, high_grid, low_grid, submap_histogram, histogram_size=120):
+    def __init__(
+        self, options, high_grid, low_grid, submap_histogram, histogram_size=120,
+        layout: FastMatchLayout | None = None,
+    ):
         self._options = options
+        self._layout = layout or fast_match_layout()
         # Grids are KEPT in their storage form (uint16-quantized for
         # finished submaps) — the pyramid/low-score derivations dequantize
         # transiently (grid_match_scores), and the pose graph's GN packs
@@ -546,21 +477,9 @@ class FastCorrelativeScanMatcher3D:
         pyr = precompute_pyramid_3d(scores, depth)
         # Row-gather layout (see _match_fast_3d_core): per level a
         # (nz*nx, ny) grid of y-minor rows storing score-0.1, plus one
-        # zero OOB row; bf16 on TPU (f32 on the CPU test backend).
-        from hectorgrapher_tpu.mapping.scan_matching.fast_correlative_2d import (
-            _level_dtype,
-        )
-
-        dt = _level_dtype()
-        # Per-level flat tables (decimated levels have different shapes).
-        # TPU: X-PAIRED rows — row (z, x) carries the y-rows of cells x
-        # AND x+1 (2*ny_l lanes, overlapping, 2x memory), so ONE gather
-        # serves both x-children of an expansion / both members of a
-        # consecutive coarse x pair; the kernel is row-gather-COUNT bound
-        # (measured round 5, BASELINE.md headroom note), so halving row
-        # count buys more than the doubled lane width costs.
+        # zero OOB row (decimated levels have different shapes).
         self._pyramid_levels = tuple(
-            _level_flat_table(pl, dt, paired=_fc2_on_tpu()) for pl in pyr
+            _level_flat_table(pl, self._layout.level_dtype) for pl in pyr
         )
         self._low_scores = grid_match_scores(low_grid)
 
@@ -607,6 +526,7 @@ class FastCorrelativeScanMatcher3D:
             initial_pose,
             yaw_scores,
             config,
+            self._layout,
         )
         return score, low_score, rot_score, pose
 

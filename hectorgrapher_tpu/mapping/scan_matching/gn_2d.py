@@ -1,6 +1,6 @@
 """Gauss-Newton 2D scan-match refinement.
 
-TPU-native replacement for CeresScanMatcher2D
+Replacement for CeresScanMatcher2D
 (ref: internal/2d/scan_matching/ceres_scan_matcher_2d.cc — occupied-space
 cost via bicubic interpolation, occupied_space_cost_function_2d.cc:47-74;
 TSDF cost via InterpolatedTSDF2D, tsdf_match_cost_function_2d.cc; plus
@@ -11,9 +11,8 @@ The LM loop here is specialized for grid matching: ONE wide patch row
 gathered per point at the initial pose, and every LM iteration — current
 AND trial cost, gradient, Jacobian — is evaluated from the carried rows
 by scattering the 4-tap cubic weights to the pose's shifted base cell
-inside the wide row. Zero gathers inside the iteration loop (the gather
-is the TPU bottleneck: row-count-bound, so the wide row costs the same
-as a 16-tap row). Exact as long as the refinement moves the base cell by
+inside the wide row. Zero gathers inside the iteration loop (one wide
+row per point replaces a 16-tap gather per point per iteration). Exact as long as the refinement moves the base cell by
 at most SLACK cells per axis — GN refinement starts within half a cell
 of the correlative optimum and is pulled to the target by the
 translation penalty, so SLACK=3 cells (0.15 m at 5 cm) bounds it with
@@ -505,8 +504,7 @@ def _gather_wide_from_flat(flat_values, base, nx, ny, min_corner, resolution,
                            world, pad_value, slack: int = _GN_SLACK):
     """_gather_wide_from_values with the submap selected by a row OFFSET
     into one shared flat table instead of a per-candidate operand: under
-    vmap a per-candidate table lowers to a batch-serialized gather (the
-    same pathology measured 4x slow in the fast matcher)."""
+    vmap a per-candidate table lowers to a batch-serialized gather."""
     w = 4 + 2 * slack
     u = (world - min_corner) / resolution - 0.5
     i0 = jnp.floor(u).astype(jnp.int32) - (1 + slack)  # (N, 2) patch corner

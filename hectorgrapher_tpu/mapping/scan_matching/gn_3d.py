@@ -1,6 +1,6 @@
 """Gauss-Newton 3D scan-match refinement.
 
-TPU-native replacement for CeresScanMatcher3D
+Replacement for CeresScanMatcher3D
 (ref: internal/3d/scan_matching/ceres_scan_matcher_3d.{h,cc} — per-grid
 weighted occupied-space/TSDF costs over the {high, low} resolution pair,
 translation/rotation delta penalties, quaternion parameterization,

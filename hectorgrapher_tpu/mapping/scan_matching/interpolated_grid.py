@@ -1,6 +1,6 @@
 """Differentiable grid interpolation for scan matching.
 
-TPU-native replacement for Ceres's BiCubicInterpolator over 2D grids
+Replacement for Ceres's BiCubicInterpolator over 2D grids
 (ref: internal/2d/scan_matching/occupied_space_cost_function_2d.cc:47-74)
 and the trilinear InterpolatedGrid/InterpolatedTSDF wrappers
 (ref: internal/3d/scan_matching/interpolated_grid.h, interpolated_tsdf.h,
@@ -76,7 +76,7 @@ def _patch_matrix_2d(values, pad_value, taps):
     c + tap for each tap, border/overflow reads = pad_value; the appended
     last row is all pad_value for out-of-grid bases.
 
-    TPU layout trick (same as the correlative kernel): interpolation taps
+    Layout (same as the correlative matcher): interpolation taps
     become ONE contiguous row gather instead of T scattered element
     gathers. The matrix is loop-invariant in GN solves, so XLA hoists its
     construction out of the iteration loop.
@@ -242,22 +242,17 @@ from typing import NamedTuple
 
 # -- z-segment row layout for the 3D prepared interpolators ------------------
 #
-# A naive (N, 8) trilinear tap table pads its minor dim 8 -> 128 lanes on
-# TPU: 16x physical memory, so building it per CT window solve wrote
-# ~0.5 GB of padding (measured ~0.8 ms of a 1.45 ms solve). Any layout
-# that interleaves taps per cell needs a minor-dim relayout XLA/Mosaic
-# materializes expensively, so the table instead keeps z — the grid's
-# natural minor dim — in the lanes:
+# A naive (N, 8) trilinear tap table interleaves taps per cell, which
+# needs a minor-dim relayout of the whole grid per CT window solve, so the
+# table instead keeps z — the grid's natural minor dim — in the lanes:
 #
 #   TSDF row (x*ny + y)*nseg + k, lanes [0, 64)  = weight  [z = 63k .. 63k+63]
 #                                 lanes [64, 128) = w * tsd [same z window]
 #
 # Segments overlap by one z so (z, z+1) always land in ONE row; a point's
 # trilinear stencil is 4 gathered rows (2x2 xy neighbors) covering BOTH
-# fields, and the z taps are two lanes selected in-register (iota one-hot,
-# the same trick as the pallas correlative score assembly). Building the
-# table is pure lane-aligned slicing — no interleave, ~10x cheaper than
-# the tap-table build. Probability grids use one field with 127-z rows.
+# fields, and the z taps are two lanes selected in-register (iota one-hot).
+# Building the table is pure lane-aligned slicing — no interleave. Probability grids use one field with 127-z rows.
 
 _TSDF_SEG = 63  # z values per TSDF row segment (z window of 64 incl. +1)
 _PROB_SEG = 127  # z values per probability row segment
@@ -507,8 +502,7 @@ def prepare_field_2d_wide(
     """Bicubic patch matrix widened by `slack` cells per side: row c holds
     the (4+2*slack)^2 neighborhood at c + (-1-slack .. 2+slack)^2.
 
-    Row gathers are row-count-bound on TPU, not byte-bound, so one wide
-    row costs the same as a 16-tap row — but it serves EVERY bicubic
+    One wide row per point replaces a 16-tap row per lookup: it serves EVERY bicubic
     lookup whose base cell lies within `slack` cells of c, which lets the
     GN solver gather once and run all LM iterations from carried rows."""
     nx, ny = values.shape
@@ -528,8 +522,8 @@ def prepare_field_2d_wide(
         [table, jnp.full((1, w * w), pad_value, jnp.float32)], axis=0
     )
     if lanes is not None and lanes > w * w:
-        # Zero-filled spare lanes (e.g. up to the 128-lane VPU tile for the
-        # pallas LM kernel); in-envelope kernel weights there are zero.
+        # Zero-filled spare lanes up to a caller's row width; in-envelope
+        # interpolation weights there are zero.
         table = jnp.pad(table, ((0, 0), (0, lanes - w * w)))
     return PreparedField2D(
         patches=table,

@@ -9,7 +9,7 @@ max(0, 1 - |delta_hat . direction_hat|) unless the pair is too close
 too large (> 0.9 m). Histograms are matched by cosine similarity over
 rotated copies.)
 
-TPU design: one pass of sort + segment ops over a padded cloud; rotation
+Design: one pass of sort + segment ops over a padded cloud; rotation
 of histograms by fractional bins via linear interpolation, batched over
 many candidate angles at once.
 """

@@ -4,7 +4,7 @@
 submaps; a new one is started every num_range_data inserts and the old one
 is finished after 2*num_range_data.)
 
-TPU design: each submap's grid is a fixed dense array centered on the
+Design: each submap's grid is a fixed dense array centered on the
 submap origin (the tracking position at creation), so insertion and
 matching are static-shape kernels; there is no grow-by-doubling.
 """

@@ -6,7 +6,7 @@ accumulated rotational-histogram; ActiveSubmaps3D keeps two submaps with
 the same spawn/finish cadence as 2D (InsertData :492-515); grid type
 switches between PROBABILITY_GRID and TSDF (CreateGrid :516-547).)
 
-TPU design: fixed-extent dense arrays in the local SLAM frame (grid
+Design: fixed-extent dense arrays in the local SLAM frame (grid
 min_corner shifted so the array is centered on the submap origin);
 insertion and matching are static-shape kernels.
 """

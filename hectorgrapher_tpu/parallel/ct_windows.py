@@ -2,12 +2,12 @@
 
 The reference's multi-robot MapBuilderServer runs one local SLAM stack
 per trajectory on CPU threads (ref: cloud/internal/map_builder_server.cc
-— one SLAM thread; scaling is adding servers). The TPU-native serving
-shape: each chip of a slice solves the CT windows of its share of
+— one SLAM thread; scaling is adding servers). The device-side serving
+shape: each device of the mesh solves the CT windows of its share of
 trajectories — the batched window solve (`solve_ct_window_batched`)
 sharded over the mesh's `graph` axis with `shard_map`. Zero collectives:
 window solves are independent per trajectory, so the mesh scales serving
-throughput linearly and ICI stays free for the pose-graph collectives
+throughput linearly and the interconnect stays free for the pose-graph collectives
 (parallel/sharded.py).
 
 Grids of one shard batch must share shapes (bucket trajectories by

@@ -3,7 +3,7 @@
 The reference distributes across machines with gRPC only: robots upload
 to one MapBuilderServer process that owns the whole pose graph
 (ref: cloud/internal/map_builder_server.cc; SURVEY §2.12 #3). The
-TPU-native shape splits the two planes:
+shape splits the two planes:
 
   * SENSOR plane (host-side, unchanged): each host runs the gRPC edge
     (`cloud/server.py`) for its robots — ingestion, collation and local
@@ -12,8 +12,9 @@ TPU-native shape splits the two planes:
     GLOBAL mesh spanning every host's devices. The sharded SPA and
     constraint search (`parallel/sharded.py`, `parallel/constraint_
     search.py`) run unchanged on that mesh — under `shard_map`, XLA
-    lowers the psum/all_gather collectives onto ICI within a slice and
-    DCN between slices; no NCCL/MPI analog is written by hand.
+    lowers the psum/all_gather collectives to NCCL, over NVLink between
+    the cards of a host and the network between hosts; no collective is
+    written by hand.
 
 This module is the thin bootstrap for the solver plane: every host calls
 `initialize_process` (JAX's coordination service: one coordinator

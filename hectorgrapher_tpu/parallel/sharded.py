@@ -1,10 +1,10 @@
 """Multi-device sharding of the pose-graph workloads.
 
-TPU-native replacement for the reference's distributed mapping layer
+Replacement for the reference's distributed mapping layer
 (ref: cartographer/cloud — gRPC uplink server holding the global pose
 graph; SURVEY.md section 2.12 #3): instead of RPC between processes, the
 pose-graph state is sharded over a jax.sharding.Mesh and reductions ride
-the ICI collectives.
+XLA's collectives.
 
 Implemented here:
   * solve_spa_2d_sharded / solve_spa_3d_sharded — distributed block

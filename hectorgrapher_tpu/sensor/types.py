@@ -1,6 +1,6 @@
 """Typed sensor data as JAX pytrees with static shapes.
 
-TPU-native replacement for the reference's value types
+Replacement for the reference's value types
 (ref: cartographer/sensor/{rangefinder_point.h, point_cloud.h,
 timed_point_cloud_data.h, imu_data.h, odometry_data.h, range_data.h,
 fixed_frame_pose_data.h, landmark_data.h}).

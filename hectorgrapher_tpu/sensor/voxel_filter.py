@@ -4,7 +4,7 @@
 voxel via hashed integer cell; adaptive_voxel_filter.h:49-92 — search voxel
 edge length until >= min_num_points survive.)
 
-TPU design: instead of a hash set, points are keyed by their integer cell
+Design: instead of a hash set, points are keyed by their integer cell
 coordinates, sorted by key, and the first point of each key run survives.
 Output keeps the input capacity with an updated validity mask, so shapes
 stay static under jit. Determinism: the surviving point of a voxel is the
@@ -27,7 +27,7 @@ _INVALID_CELL = 1 << 24
 
 def _cell_coords(positions, mask, resolution):
     """Integer cell coordinates (N, 3) in int32; invalid points get a
-    sentinel so they sort to the end. int32 keeps the filter TPU-friendly
+    sentinel so they sort to the end. int32 keeps the filter device-friendly
     (no x64 requirement); range +-2^23 cells is far beyond the reference's
     +-8192 (hybrid_grid.h:40-45)."""
     cells = jnp.floor(positions / resolution).astype(jnp.int32)

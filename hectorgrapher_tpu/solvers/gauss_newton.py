@@ -3,7 +3,7 @@
 The Ceres replacement (SURVEY.md section 7, "hard parts" #1). Everything
 the reference solves with ceres::Solver — scan-match refinement
 (ceres_scan_matcher_2d/3d), the continuous-time window optimizer, and the
-small dense blocks of SPA — runs through this solver on TPU.
+small dense blocks of SPA — runs through this solver on the device.
 
 Design:
   * Retraction-based: the caller provides `residual_fn(x)` over a pytree
@@ -13,7 +13,7 @@ Design:
     manifold structure is handled exactly like Ceres's LocalParameterization.
   * Dense normal equations: J^T J is (dim, dim) with dim <= a few hundred
     (3 for 2D matching, 6-7 for 3D, ~10*K for the CT window) — a dense
-    Cholesky on the MXU beats any sparse scheme at this size.
+    Cholesky beats any sparse scheme at this size.
   * One lax.while_loop with classic LM damping (multiplicative lambda
     update on accept/reject) and Ceres-style function/parameter tolerance
     termination, capped at num_iterations — the whole solve jits to one

@@ -1,6 +1,6 @@
 """SO(3)/SE(3) and SE(2) transforms as batched JAX array operations.
 
-TPU-native replacement for the reference's Eigen-based Rigid2<T>/Rigid3<T>
+Replacement for the reference's Eigen-based Rigid2<T>/Rigid3<T>
 (ref: cartographer/transform/rigid_transform.h, transform/transform.h).
 Instead of transform *objects*, everything here is a pure function over
 arrays with arbitrary leading batch dimensions, so poses vmap/scan/jit

@@ -3,7 +3,7 @@ path (VERDICT r3 #6): a multi-trajectory MapBuilderServer in
 batch_ct_windows mode must solve N trajectories' ready windows in ONE
 batched launch (cloud/ct_batcher.py) with per-trajectory results matching
 the serial server (ref: map_builder_server.cc:157-176 — the reference
-serializes everything on one SLAM thread; the TPU server beats that by
+serializes everything on one SLAM thread; this server beats that by
 batching the solves)."""
 
 import jax.numpy as jnp

@@ -76,7 +76,7 @@ class TestFastCorrelative3D:
 
 
 def test_decimated_pyramid_admissible_bound():
-    """The decimated max pyramid (round-5 HBM redesign) must keep the
+    """The decimated max pyramid (the memory-saving layout) must keep the
     branch-and-bound invariant: the value at cell floor(q / 2^l) of level
     l upper-bounds EVERY exact score in [q, q + 2^l)^3, for any query q —
     including queries not aligned to the level's stride (the reference's

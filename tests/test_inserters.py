@@ -278,7 +278,7 @@ class TestF16Storage:
 
 
 class TestKnnPcaNormals:
-    """TPU-native PCL/OPEN3D normal backend
+    """Dense k-NN PCA replacement for the PCL/OPEN3D normal backend
     (ref: tsdf_range_data_inserter_3d.cc:405-489)."""
 
     def test_plane_normals(self):

@@ -94,145 +94,33 @@ def test_full_3d_slam_straight_drive():
 
 
 # ---------------------------------------------------------------------------
-# Closed 3D loop with genuine front-end drift (VERDICT r2 #4; ref:
-# map_builder_test.cc GlobalSlam3D loop cases)
+# Closed 3D loop with genuine front-end drift (ref: map_builder_test.cc
+# GlobalSlam3D loop cases); the scenario lives in
+# evaluation/mapping_runs.py so chip_smoke.py runs it at full extent.
 # ---------------------------------------------------------------------------
-
-
-def loop_options():
-    return replace_deep(
-        make_options(),
-        {
-            # Weight the CT window toward odometry so the injected odometry
-            # bias genuinely drifts the front-end (dead-reckoning-dominant
-            # tuning); the pose graph's loop-closure matchers still see the
-            # fully informative scans and must correct the drift.
-            "trajectory_builder_3d.optimizing_local_trajectory_builder.odometry_translation_weight": 50.0,
-            "trajectory_builder_3d.optimizing_local_trajectory_builder.odometry_rotation_weight": 50.0,
-            "trajectory_builder_3d.optimizing_local_trajectory_builder.high_resolution_grid_weight": 0.05,
-            "trajectory_builder_3d.optimizing_local_trajectory_builder.low_resolution_grid_weight": 0.05,
-            "pose_graph.optimize_every_n_nodes": 16,
-            "pose_graph.constraint_builder.max_constraint_distance": 8.0,
-            "pose_graph.constraint_builder.min_score": 0.45,
-            "pose_graph.constraint_builder.fast_correlative_scan_matcher_3d.min_low_resolution_score": 0.45,
-        },
-    )
 
 
 @pytest.mark.slow
 def test_full_3d_slam_closed_loop_corrects_drift(tmp_path):
-    """Out-and-back 3D drive through CT local SLAM + ASYNC pose graph.
-    Odometry carries a growing x bias while the x walls are out of range;
-    the returning nodes close the loop against the first finished submap
-    and optimization pulls the drifted estimate back. Includes state
+    """Out-and-back 3D drive through CT local SLAM + ASYNC pose graph: the
+    returning nodes close the loop against the first finished submap and
+    optimization pulls the drifted estimate back. Includes state
     save/load of the result (ref: map_builder_test.cc GlobalSlam3D +
     LocalizationOnFrozenMap save/load)."""
-    mb = MapBuilder(loop_options())
-    tb = mb.get_trajectory_builder(mb.add_trajectory_builder())
-    rng = np.random.default_rng(1)
-
-    A = np.array([-2.6, -2.0, 0.0])
-    speed, rest, out_len = 0.8, 0.6, 3.0
-    t_out = out_len / speed
-    duration = rest + 2 * t_out
-
-    def gt(t):
-        """True pose: rest at A, drive +x out_len, drive back."""
-        s = max(0.0, t - rest)
-        if s <= t_out:
-            x = speed * s
-        else:
-            x = out_len - speed * min(s - t_out, t_out)
-        return A + np.array([x, 0.0, 0.0]), nq.quat_identity()
-
-    def odom_bias(t):
-        """Injected odometry drift: +x bias growing 0.1 m/s in t=[2, 5]."""
-        return np.array([0.1 * np.clip(t - 2.0, 0.0, 3.0), 0.0, 0.0])
-
-    dt_imu, dt_odom, dt_scan = 0.01, 0.05, 0.1
-    t, next_odom, next_scan = 0.0, 0.0, 0.05
-    while t <= duration:
-        _, q = gt(t)
-        tb.add_imu_data(t, nq.quat_rotate(nq.quat_conjugate(q), GRAVITY), np.zeros(3))
-        if t >= next_odom:
-            pt, pq = gt(t)
-            tb.add_odometry_data(
-                t, NpRigid3(pt + odom_bias(t) + rng.normal(0, 0.002, 3), pq)
-            )
-            next_odom += dt_odom
-        if t >= next_scan:
-            pt, pq = gt(t)
-            pts = raycast_box_room_3d(
-                pt, pq, num_azimuth=96, num_elevation=24,
-                noise_std=0.004, rng=rng,
-            )
-            pts = pts[~np.isnan(pts[:, 0])]
-            cloud = pad_timed_cloud(pts, np.zeros(len(pts), np.float32), 2560)
-            tb.add_range_data(
-                TimedPointCloudData(
-                    time=jnp.asarray(t), origin=jnp.zeros(3, jnp.float32),
-                    ranges=cloud, width=96,
-                )
-            )
-            next_scan += dt_scan
-        t = round(t + dt_imu, 6)
-
-    pg = mb.pose_graph
-    pg.wait_for_all_computations()
-
-    def gt_map(t):
-        """Ground truth in the MAP frame: the trajectory starts at rest at
-        A with an identity pose, so the map frame is the world frame
-        translated by -A."""
-        return gt(t)[0] - A
-
-    assert len(pg.nodes) >= 20
-    assert len([s for s in pg.submaps if s.finished]) >= 1
-
-    # The front-end really drifted: the returning nodes' LOCAL poses carry
-    # the injected odometry bias. (The CT window marginalizes with ~1 s
-    # delay, so select the tail by index, not by absolute time.)
-    late = pg.nodes[-max(4, len(pg.nodes) // 4):]
-    local_errs = [np.linalg.norm(n.local_pose.t - gt_map(n.time)) for n in late]
-    assert max(local_errs) > 0.15, (
-        f"no drift was injected (max late local err {max(local_errs):.3f} m, "
-        f"last node t={pg.nodes[-1].time:.2f} of {duration:.2f})"
+    from hectorgrapher_tpu.evaluation.mapping_runs import (
+        check_closed_loop_3d,
+        loop_options,
+        run_closed_loop_3d,
     )
 
-    inter = [c for c in pg.constraints if c.tag == "INTER"]
-    assert len(inter) >= 1, "loop closure found no INTER constraint"
-
-    pg.run_final_optimization()
-    global_errs = [
-        np.linalg.norm(n.global_pose.t - gt_map(n.time)) for n in pg.nodes
-    ]
-    import os as _os
-    if _os.environ.get("HG_LOOP_DEBUG"):
-        print(f"\nnodes={len(pg.nodes)} INTER={sum(c.tag=='INTER' for c in pg.constraints)}")
-        for n in pg.nodes[::3]:
-            print(f"  t={n.time:5.2f} lerr={np.linalg.norm(n.local_pose.t - gt_map(n.time)):.3f}"
-                  f" gerr={np.linalg.norm(n.global_pose.t - gt_map(n.time)):.3f}")
-        for i, s in enumerate(pg.submaps):
-            print(f"  submap {s.submap_id} fin={s.finished} local={np.round(s.submap.local_pose.t,2)} global={np.round(s.global_pose.t,2)}")
-    # Loop closure must correct the RETURNING segment (the part with both
-    # accumulated drift and loop-closure anchors); the turnaround node —
-    # farthest from any anchor — legitimately retains part of the error,
-    # exactly like the reference's loop tests.
-    late_global = [np.linalg.norm(n.global_pose.t - gt_map(n.time)) for n in late]
-    assert max(late_global) < max(local_errs) / 2, (
-        f"loop closure failed: returning-tail global {max(late_global):.3f} m vs "
-        f"open-loop {max(local_errs):.3f} m"
-    )
-    assert max(late_global) < 0.15, f"tail global error {max(late_global):.3f} m"
-    assert float(np.median(global_errs)) < 0.12, (
-        f"median global error {np.median(global_errs):.3f} m"
-    )
+    r = run_closed_loop_3d(loop_options())
+    assert not check_closed_loop_3d(r), check_closed_loop_3d(r)
 
     # Save/load of the result (full, non-frozen).
-    from hectorgrapher_tpu.common.config import MapBuilderOptions
     from hectorgrapher_tpu.io.serialization import load_state, save_state
     from hectorgrapher_tpu.mapping.pose_graph.pose_graph import PoseGraph3D
 
+    pg = r.map_builder.pose_graph
     path = str(tmp_path / "loop3d.npz")
     save_state(pg, path)
     pg2 = PoseGraph3D(loop_options().pose_graph, histogram_size=pg._histogram_size)

@@ -325,8 +325,9 @@ else:
     assert ref3, "reference 3D run found no INTER constraints"
     assert got3 == ref3, (got3, ref3)
     # Solver-plane overhead record (VERDICT r4 next #7): per-op payload
-    # bytes + follower-ack latencies over DCN (localhost gRPC here; real
-    # DCN adds its RTT on top of the serialize/deserialize cost shown).
+    # bytes + follower-ack latencies between hosts (localhost gRPC here; a
+    # real network adds its RTT on top of the serialize/deserialize cost
+    # shown).
     import json as _json
     summary = {
         op: {
@@ -389,7 +390,7 @@ def test_two_process_global_mesh(tmp_path):
     assert "SOLVERPLANE OK" in outs[0][1]
     assert "PROD2D OK" in outs[0][1]
     assert "PROD3D OK" in outs[0][1]
-    # Overhead record present (numbers land in BASELINE.md's DCN table).
+    # Overhead record present.
     stats_line = next(
         (l for l in outs[0][1].splitlines() if l.startswith("SOLVERPLANE_STATS ")),
         None,

@@ -1,7 +1,7 @@
 """uint16 quantized grid storage option
 (ref: mapping/probability_values.h:64-92 — float probability <-> uint16
 codes; mapping/2d/tsd_value_converter.h:33-73 — TSD/weight <-> uint16 with
-code 0 = unknown). TPU divergence (documented in grids.py): active grids
+code 0 = unknown). Divergence (documented in grids.py): active grids
 compute in f32; quantization applies when a submap finishes, halving the
 footprint of the long-lived finished submaps."""
 

@@ -225,9 +225,8 @@ class TestBatchedGN:
 
 
 class TestBatchedCorrelative:
-    """The batched matcher (pallas prep kernel, interpret mode on CPU)
-    must reproduce the per-match matcher exactly — the kernel evaluates
-    the same f32 expression tree for the cell discretization."""
+    """The batched matcher (the per-match matcher vmapped over the batch)
+    must reproduce the per-match matcher exactly."""
 
     def test_matches_single_path(self):
         from hectorgrapher_tpu.mapping.scan_matching.correlative_2d import (
@@ -248,7 +247,6 @@ class TestBatchedCorrelative:
         initials = Rigid2(translation=jnp.asarray(offs), angle=jnp.asarray(angs))
         scores_b, poses_b = match_correlative_2d_batched(
             grid, clouds, initials, window, 0.1, 0.1,
-            use_pallas=True, interpret=True,
         )
         for i in range(B):
             one = PointCloud(positions=clouds.positions[i], mask=clouds.mask[i])

@@ -1,8 +1,8 @@
 """Matrix-free CG linear solver vs the exact block-Schur path.
 
 The CG path (`_spa_cg_solve`) exists so production-scale graphs avoid the
-O(S*N) coupling tensor (a 500x5000 graph padded that tensor to 9.5 GB on
-a 16 GB v5e — ref operating point: configuration_files/pose_graph.lua:16,
+O(S*N) coupling tensor (a 500x5000 graph pads that tensor to 9.5 GB —
+ref operating point: configuration_files/pose_graph.lua:16,
 SPA every 90 nodes over multi-thousand-node graphs). Both paths solve the
 same damped, fixed-masked normal equations, so converged results must
 agree.
